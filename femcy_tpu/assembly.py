@@ -3,7 +3,7 @@
 The reference's hot kernels (stiffnessMtrx.py:132-216, 532-556, 609-644) are
 Taichi loops with atomic scatter-adds and a per-entry linear search.  Here the
 same math is expressed as batched einsums over static quadrature tables -- the
-B^T C B contraction is a batched matmul XLA tiles onto the MXU -- followed by
+B^T C B contraction is a batched matmul -- followed by
 a single ``segment_sum`` over host-presorted indices (see topology.py).
 
 All functions are pure and shape-static; the system jits them.
@@ -22,7 +22,7 @@ def gradients_and_volume_x(x, dshape_gp, weights_gp):
     """gradients_and_volume on pre-gathered element coordinates
     x : (E, n, dm) -- callers with structured meshes build x by static
     slicing (structured.structured_element_nodes) instead of the
-    ``coords[elements]`` gather (~45 ms of pure gather at 1M elements)."""
+    ``coords[elements]`` gather."""
     dxdn = jnp.einsum("enD,gnd->egDd", x, dshape_gp)
     inv = inv_small(dxdn)  # (E, G, d, D)
     dsdx = jnp.einsum("gnd,egdD->egnD", dshape_gp, inv)
@@ -122,8 +122,7 @@ def geometric_stiffness(dsdx, sigma, vol):
 def scatter_stiffness(Ke, scatter_targets, n_dof, width):
     """Element stiffnesses -> padded ELL values via one segment-sum.
 
-    Targets are in Ke layout order (unsorted): on TPU the direct scatter
-    measures faster than gathering into sorted order first, and it avoids
+    Targets are in Ke layout order (unsorted): the direct scatter avoids
     materialising a contribution-sized permutation.
     """
     flat = jax.ops.segment_sum(
@@ -148,9 +147,8 @@ def expand_block_targets(block_targets, node_width, dm, width, npe):
     pos = bt % node_width
     base = (n * dm) * width + pos * dm  # (E, npe*npe)
     # Static flat-index tables instead of a broadcast to (E,npe,dm,npe,dm):
-    # the 5-D intermediate's tiny minor dims get TPU tile padding (the last
-    # dim 3 pads to 128), inflating 607 MB of s32 to 25.9 GB at 1M elements
-    # -- an HBM OOM on a 16 GB chip.  Ke's flat order is
+    # the 5-D intermediate's tiny minor dims invite layout padding, and
+    # it is 607 MB of s32 at 1M elements even unpadded.  Ke's flat order is
     # k = (a*dm+di)*edof + (b*dm+dj); for each k the base entry is
     # (a, b) and the in-block offset di*width + dj.
     edof = npe * dm
@@ -230,7 +228,7 @@ def consistent_tangent(dof, elements, coords0, dN, w, material):
     """Exact per-element Newton tangent Ke = d f_int_e / d u_e by forward-mode
     autodiff, vmapped over elements -> (E, edof, edof).
 
-    This is the TPU/JAX-native upgrade over the reference's secant Jacobian
+    This is the JAX-native upgrade over the reference's secant Jacobian
     (README.md:93): material + geometric + configuration terms, exact, with
     no hand-derived tensor algebra.  Cost: edof JVPs of the element force.
     """

@@ -1,9 +1,8 @@
 """Host (numpy, f64) twins of the device assembly -- the reference operator
 for mixed-precision iterative refinement.
 
-TPU-native precision story: f64 on TPU is software-emulated (~26x slower
-element math, measured in README.md), but near-incompressible materials lose
-O(1%) of the answer in f32 (tests/test_precision.py).  Iterative refinement
+Precision story: near-incompressible materials lose O(1%) of the answer in
+f32 (tests/test_precision.py).  Iterative refinement
 splits the difference: the BULK work (every inner linear solve) runs in f32
 on the device; only one residual evaluation per outer iteration runs in f64
 -- here, on the host against the exactly-assembled CSR operator, since numpy

@@ -4,7 +4,7 @@ Beyond-parity subsystem.  The reference *parses* B31 connectivity
 (reader/inp_info.py:98-100, 118-123) but has no element class for it, so
 any B31 model crashes with a KeyError; femcy_tpu actually solves them.
 
-Design notes (TPU-first):
+Design notes:
 
 * a beam node carries 6 dofs (3 translations + 3 rotations), which does not
   fit :class:`femcy_tpu.system.FEMSystem`'s ``dm`` dofs/node layout -- beams
@@ -13,7 +13,7 @@ Design notes (TPU-first):
   ``jax.scipy.linalg.solve`` beats any sparse machinery and compiles to a
   single XLA program;
 * element stiffnesses are built in one ``vmap`` over elements (batched 12x12
-  congruence transforms -- MXU-friendly einsums) and scattered with a single
+  congruence transforms -- batched einsums) and scattered with a single
   ``.at[].add`` into the dense operator;
 * element frames depend only on the (static) geometry, so they are prepared
   once on the host in f64 numpy, exactly like the mesh/topology prep of the

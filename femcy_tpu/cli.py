@@ -22,7 +22,7 @@ STRESS_IDS_3D = {0: (0, 0), 1: (1, 1), 2: (2, 2), 3: (0, 1), 4: (2, 0), 5: (1, 2
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="femcy_tpu",
-        description="TPU-native finite-element solver for Abaqus .inp models",
+        description="finite-element solver for Abaqus .inp models (JAX)",
     )
     p.add_argument("inp", help="path to the .inp model")
     p.add_argument(
@@ -128,12 +128,39 @@ def _element_types(text: str) -> set:
     return types
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.platform:
-        import jax
+#: optional packages each export flag needs (the solve itself needs none)
+_EXPORT_DEPS = {
+    "save_png": ("matplotlib", "--save-png"),
+    "save_frames": ("matplotlib", "--save-frames"),
+    "save_gif": ("PIL", "--save-gif"),
+}
 
+
+def missing_export_deps(args) -> list:
+    """Messages for export flags whose optional package is not installed."""
+    import importlib.util
+
+    out = []
+    for attr, (module, flag) in _EXPORT_DEPS.items():
+        if getattr(args, attr, None) and importlib.util.find_spec(module) is None:
+            pkg = "Pillow" if module == "PIL" else module
+            out.append(f"{flag} needs {pkg}, which is not installed")
+    return out
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    missing = missing_export_deps(args)
+    if missing:
+        parser.error("; ".join(missing))
+    import jax
+
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    from femcy_tpu.utils.cache import configure_compile_cache
+
+    configure_compile_cache()
     if args.verbose:
         logging.basicConfig(level=logging.INFO, format="%(message)s")
 

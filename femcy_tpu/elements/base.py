@@ -1,6 +1,6 @@
 """Element definitions as static data + pure functions.
 
-TPU-first design: the reference keeps Gauss tables in Taichi device fields and
+Design: the reference keeps Gauss tables in Taichi device fields and
 duplicates every shape function in "ti scope" and "py scope"
 (element_zoo/element_base.py:9-53).  Here an element type is a frozen
 dataclass of *static numpy tables* (quadrature, shape values / gradients at
@@ -8,8 +8,7 @@ the quadrature points, facet tables, the GP->node extrapolation matrix, and
 viz triangulation) plus one pure ``shape_fn`` / ``dshape_fn`` pair that is
 only ever evaluated host-side at static natural coordinates.  Device code
 never evaluates shape functions: assembly consumes the precomputed
-``dshape_at_gp`` tables, so the hot path is pure batched linear algebra that
-XLA tiles onto the MXU.
+``dshape_at_gp`` tables, so the hot path is pure batched linear algebra.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Result export: deformed-mesh PNG (matplotlib) and legacy VTK.
 
 The reference renders interactively with the Taichi GUI (body.py:49-162,
-colorBar.py); on TPU hosts there is no display, so the equivalents are file
+colorBar.py); accelerator hosts have no display, so the equivalents are file
 exporters reusing the same surface triangulation and GP->node extrapolation.
 """
 

@@ -1,8 +1,8 @@
 """Self-contained interactive HTML export of the deformed, stress-colored mesh.
 
 The reference's only interactive visualization is the Taichi GUI window
-(body.show, /root/reference/body.py:100-162) -- unusable on a display-less
-TPU host.  This writes ONE .html file with the surface triangulation, nodal
+(body.show, body.py:100-162) -- unusable on a display-less
+accelerator host.  This writes ONE .html file with the surface triangulation, nodal
 field and a ~100-line vanilla-JS viewer (canvas 2D, painter's algorithm,
 drag-to-rotate / wheel-to-zoom, per-face colors + a colorbar).  No network,
 no external libraries: the file works from a local open or an artifact

@@ -1,3 +1,2 @@
-from femcy_tpu.kernels.dia_spmv import make_spmv, pallas_spmv, pallas_spmv_plan
-
-__all__ = ["make_spmv", "pallas_spmv", "pallas_spmv_plan"]
+"""Hand-written GPU kernels (Pallas through Triton), each kept because it
+beat XLA's compilation of the plain version end to end (PERF.md)."""

@@ -1,8 +1,8 @@
 """Tiny batched linear algebra (closed-form 2x2 / 3x3).
 
-TPU-friendly replacements for ``jnp.linalg.inv/det`` on the small matrices
-FEM kinematics produces: the LU path is unavailable for f64 on TPU and is
-overkill for 2x2/3x3; the adjugate forms fuse into the surrounding einsums.
+Closed-form replacements for ``jnp.linalg.inv/det`` on the small matrices
+FEM kinematics produces: the LU path is overkill for 2x2/3x3, and the
+adjugate forms fuse into the surrounding einsums.
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ import jax.numpy as jnp
 def det_small(a):
     """Batched closed-form determinant of (..., 2, 2) or (..., 3, 3).
 
-    TPU-friendly: avoids the LU decomposition path of ``jnp.linalg.det``
-    (not implemented for f64 on TPU, and needless for these tiny matrices).
+    Avoids the LU decomposition path of ``jnp.linalg.det`` (needless for
+    these tiny matrices) so it fuses with its neighbours.
     """
     if a.shape[-1] == 2:
         return a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]

@@ -1,6 +1,6 @@
 """Material zoo: pure-function constitutive models.
 
-TPU-first design: the reference implements each constitutive update as a
+Design: the reference implements each constitutive update as a
 Taichi kernel looping over (element, gp) fields (material_zoo/*.py).  Here a
 material is a small object of static elastic constants plus *pure functions*
 ``F -> cauchy stress`` and ``F -> energy density`` on a single deformation

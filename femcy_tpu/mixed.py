@@ -8,7 +8,7 @@ silo: a SINGLE equation system over 6-dof nodes carrying BOTH beam blocks
 (all six dofs) and continuum blocks (the three translations), so a
 frame-stiffened plate/solid is one model.
 
-Design (TPU-first, one jitted assembly program):
+Design (one jitted assembly program):
 
 * global layout: 6 dofs per node.  Continuum element dofs map to
   ``node*6 + {0,1,2}``, beam dofs to ``node*6 + {0..5}``; the shared ELL

@@ -1,13 +1,17 @@
 """ctypes loader for the native pattern builder.
 
-Compiles femcy_tpu/native/pattern.cpp on first use (g++, cached next to the
-source); falls back to the pure-numpy path in topology.py when a toolchain is
-unavailable or FEMCY_TPU_NATIVE=0.
+Compiles femcy_tpu/native/pattern.cpp on first use with g++ into
+``libfemcy_pattern-<sha256 of the source>.so`` next to the source (ignored by
+git).  A library is reused only when its name carries the hash of the
+current source, so a stale or copied-in build is never loaded.  Falls back to
+the pure-numpy path in topology.py when a toolchain is unavailable or
+FEMCY_TPU_NATIVE=0.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
 import pathlib
@@ -25,11 +29,20 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 
+def library_path(src: pathlib.Path = _HERE / "pattern.cpp") -> pathlib.Path:
+    """Where the build of ``src`` lives: keyed on the source's content."""
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return src.parent / f"libfemcy_pattern-{digest}.so"
+
+
 def _compile() -> Optional[pathlib.Path]:
     src = _HERE / "pattern.cpp"
-    out = _HERE / "libfemcy_pattern.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    out = library_path(src)
+    if out.exists():
         return out
+    # build under a process-unique name and rename: concurrent first uses
+    # (test workers) never load a half-written library
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         "g++",
         "-O3",
@@ -38,10 +51,11 @@ def _compile() -> Optional[pathlib.Path]:
         "-fPIC",
         str(src),
         "-o",
-        str(out),
+        str(tmp),
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
         return out
     except Exception as exc:  # toolchain missing / compile error -> numpy path
         logger.warning("native pattern builder unavailable (%s)", exc)

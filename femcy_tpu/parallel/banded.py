@@ -2,14 +2,14 @@
 
 The first general (unstructured-mesh) multi-chip design (parallel/sharded.py)
 is correctness-first: its SpMV gathers x rows through the ELL column index --
-the access pattern the single-chip work measured ~500x off HBM speed on TPU
-and replaced with DIA shifted slices (solvers/dia.py).  Unstructured meshes
+the access pattern the single-device structured path replaced with DIA
+shifted slices (solvers/dia.py).  Unstructured meshes
 cannot reuse that trick directly: after a bandwidth-reducing reordering the
 set of distinct (col - row) offsets fills the whole band (measured: K =
 2*bw + 1 on every tet/tri mesh tried), so per-offset shifted slices would
 mean thousands of HLO ops per SpMV.
 
-The TPU-native answer is one step coarser -- **block-tridiagonal storage**:
+The answer here is one step coarser -- **block-tridiagonal storage**:
 
 * **Host setup.**  Reverse-Cuthill-McKee on the dof graph bounds the
   bandwidth ``bw``; rows are cut into blocks of ``B >= bw`` dofs.  Every
@@ -18,10 +18,9 @@ The TPU-native answer is one step coarser -- **block-tridiagonal storage**:
   arrays hold the whole operator.
 
 * **SpMV = three batched matmuls.**  y_I = D_I x_I + L_I x_{I-1} +
-  U_I x_{I+1} -- MXU einsums over dense blocks, O(1) HLO ops, no gather,
+  U_I x_{I+1} -- einsums over dense blocks, O(1) HLO ops, no gather,
   no scatter.  The memory overhead vs the exact sparsity (3*B/row_width) is
-  the price of regularity; on TPU it beats the gather path by a wide margin
-  because the blocks stream at HBM speed.
+  the price of regularity: the blocks stream at memory speed.
 
 * **Sharding.**  Each device owns ``nbl`` consecutive row blocks.  Elements
   are assigned to the device that owns their smallest row block; one
@@ -213,7 +212,7 @@ def _neighbor_blocks(D: int, xb):
 
 def _btd_spmv(D: int, V, x_local):
     """y = A x on the local row blocks.  V: (nbl, 3, B, B) [lower, diag,
-    upper]; three batched MXU matmuls + two one-block ppermutes."""
+    upper]; three batched matmuls + two one-block ppermutes."""
     nbl, _, B, _ = V.shape
     xb = x_local.reshape(nbl, B)
     x_lo, x_hi = _neighbor_blocks(D, xb)
@@ -271,7 +270,7 @@ def _btd_pcg(
       block-tridiagonal operator only (non-overlapping block Schwarz) via
       the precomputed block-Thomas factorization
       ``minv_blocks = stack([Sinv, LS, SU])`` -- see
-      :func:`_btd_thomas_factor`.  Apply = one batched MXU einsum + a
+      :func:`_btd_thomas_factor`.  Apply = one batched einsum + a
       forward and a backward ``lax.scan`` of B-sized matvecs (~= one extra
       SpMV of flops).  721 -> 335 on the same fixture.
     * ``kind='block'``: block-Jacobi z = D_I^-1 r_I from the materialized

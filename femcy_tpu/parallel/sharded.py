@@ -1,6 +1,6 @@
 """Multi-chip execution: sharded assembly + row-parallel CG over a device mesh.
 
-TPU-native scaling design (SURVEY.md §2.5: the reference is strictly
+Scaling design (SURVEY.md §2.5: the reference is strictly
 single-device; this layer is the "beyond parity" distributed path):
 
 * **Assembly — data-parallel over elements.**  Elements are partitioned into

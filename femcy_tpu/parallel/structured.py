@@ -1,9 +1,8 @@
 """Slab-sharded structured solve: gather-free multi-chip assembly + DIA CG.
 
 The general sharded path (parallel/sharded.py) is correctness-first: its SpMV
-gathers x rows through the ELL column index -- the exact pattern the
-single-chip work measured ~500x off HBM speed and replaced with DIA shifted
-slices.  For structured box_tets meshes this module shards the SAME
+gathers x rows through the ELL column index -- the pattern the
+single-device structured path replaced with DIA shifted slices.  For structured box_tets meshes this module shards the SAME
 gather-free design over the device mesh:
 
 * **Slab decomposition.**  The box's cells are split into D equal x-slabs,
@@ -659,8 +658,11 @@ class ShardedStructuredSolver:
             self.plan.nx + 1, self.plan.ny + 1, self.plan.nz + 1, 3
         )
         fixed_c = np.ascontiguousarray(m[::2, ::2, ::2, :]).reshape(-1)
+        # the replicated inner hierarchy keeps XLA's shifted slices: the
+        # Triton SpMV was measured on the single-device path only
         inner_mg = StructuredMultigrid(
-            coarse, material, fixed_c, omega=omega, smooth_steps=steps
+            coarse, material, fixed_c, omega=omega, smooth_steps=steps,
+            coarse_spmv="slices",
         )
         dia_c = inner_mg.levels[0].dia
         vc = inner_mg._assemble_level_host(coarse, dia_c, fixed_c)
@@ -675,8 +677,8 @@ class ShardedStructuredSolver:
         }
         # compiled programs' structure is mask-independent (the mask enters
         # only through traced arrays and the inner hierarchy's static
-        # grids/offsets), so a mask change rebuilds only the operands -- a
-        # fresh program would pay the remote backend's ~160 s first-run.
+        # grids/offsets), so a mask change rebuilds only the operands, not
+        # the compiled programs.
         # Programs compiled against an earlier bundle keep working: only the
         # static level shapes are baked in, and those never change.
         self._mg_bundle = (inner_mg, omega, steps)

@@ -1,25 +1,21 @@
-"""Block-ELL sparse format: the TPU-fast general-mesh SpMV.
+"""Block-ELL sparse format: the general-mesh SpMV.
 
-The dof-level ELL SpMV gathers one SCALAR per (row, slot):
-``x[colidx]`` with n_dof*width ~ 12M gathered rows at the 0.5M-element
-scale costs 84 ms/iteration on a v5e (measured; ~1.2 GB/s effective -- the
-gather row count, not the bytes, is what the TPU pays for).  Grouping the
-dm x dm dof couplings of each NODE pair into one dense block turns the same
-operator into (n_nodes, node_width) block rows whose SpMV gathers
-(dm,)-VECTOR rows -- 9x fewer gathered rows for dm=3 -- and measures
-5.4 ms/iteration on the same operator: a 15.7x speedup with identical
-semantics.  (Offset concentration was measured first and does NOT hold on
-unstructured meshes -- the top 512 of ~4000 RCM offsets cover only 66% of
-the nnz -- so a DIA-style remainder split loses; the block gather wins on
-any mesh.)
+The dof-level ELL SpMV gathers one SCALAR per (row, slot): ``x[colidx]``
+with n_dof*width ~ 12M gathered rows at the 0.5M-element scale.  Grouping
+the dm x dm dof couplings of each NODE pair into one dense block turns the
+same operator into (n_nodes, node_width) block rows whose SpMV gathers
+(dm,)-VECTOR rows -- 9x fewer gathered rows for dm=3, identical semantics.
+(Offset concentration was measured first and does NOT hold on unstructured
+meshes -- the top 512 of ~4000 RCM offsets cover only 66% of the nnz -- so
+a DIA-style remainder split loses; the block gather works on any mesh.)
 
 Three pieces:
 
 * :func:`build_bell_plan` (host): maps an existing dof-ELL pattern
   (topology.build_pattern) to the block layout -- a pure slot permutation,
   so FEMSystem keeps assembling/BC-eliminating in dof-ELL and converts the
-  eliminated operator ONCE per solve (one 84 ms-class gather) while every
-  CG/V-cycle iteration runs on blocks.
+  eliminated operator ONCE per solve (one gather) while every CG/V-cycle
+  iteration runs on blocks.
 * :func:`bell_spmv`: rectangular-block SpMV (square br=bc=dm for operators;
   br x bc for AMG prolongators/restrictions, e.g. dm x 6).
 * :func:`csr_to_bell` (host): scipy CSR -> block-ELL arrays for operators

@@ -1,8 +1,7 @@
-"""DIA (diagonal-offset) sparse format: the gather-free TPU path.
+"""DIA (diagonal-offset) sparse format: the gather-free path.
 
-XLA's general gather/scatter on TPU runs at a few ns per element -- ~500x off
-HBM speed -- which makes the ELL SpMV the bottleneck of the CG solve.  For
-meshes whose dof graph has a bounded set of distinct (col - row) offsets
+The ELL SpMV gathers x through a column-index array on every CG iteration.
+For meshes whose dof graph has a bounded set of distinct (col - row) offsets
 (structured grids always, bandwidth-reduced unstructured meshes often), the
 matrix can be stored by offset:
 
@@ -12,7 +11,7 @@ and SpMV becomes K *statically shifted* dense slices:
 
     y = sum_k values[:, k] * xpad[pad + off_k : pad + off_k + n]
 
--- contiguous reads and VPU multiplies only, no gather at all.  The same
+-- contiguous reads and multiplies only, no gather at all.  The same
 shift trick covers the Dirichlet column operations.  Assembly scatters
 directly into the DIA layout by remapping the presorted ELL segment ids
 through a static lookup table, so the whole pipeline stays gather-free.
@@ -268,8 +267,8 @@ def dia_pcg_solve(values, offsets: Tuple[int, ...], diag_idx: int, b,
     reference's scalar Jacobi (conjugateGradientSolver.py:48-51).
 
     spmv: optional (prep, apply) pair (kernels.dia_spmv.make_spmv) replacing
-    the shifted-slice SpMV in the iteration body -- 36x faster per iteration
-    on TPU at the 1M-element scale.
+    the shifted-slice SpMV in the iteration body (the Triton kernel on a
+    GPU; PERF.md has both times).
     """
     n = b.shape[0]
     if max_iters <= 0:

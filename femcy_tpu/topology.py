@@ -1,10 +1,9 @@
 """Fixed-topology sparse pattern (padded ELL) + scatter maps, built once on host.
 
-TPU-first design.  The reference stores the stiffness matrix in a padded
+Design.  The reference stores the stiffness matrix in a padded
 row-major format keyed by ``sparseIJ`` and, on every scatter, *linearly
 searches* the row's column list for the target slot with atomics
-(stiffnessMtrx.py:79-94, 161-216, 414-420).  TPUs have no atomics, so we
-restructure: the (element, a, b) -> flat ELL slot map is precomputed here in
+(stiffnessMtrx.py:79-94, 161-216, 414-420).  Here we restructure: the (element, a, b) -> flat ELL slot map is precomputed here in
 vectorised numpy, together with a sorting permutation, so device-side assembly
 is ONE ``jax.ops.segment_sum`` over precomputed slot targets -- deterministic,
 search-free, and race-free by construction (this also subsumes the

@@ -4,7 +4,7 @@ The reference's tracing story is ad-hoc ``time.time()`` brackets with ANSI
 prints and a ``self.compiled`` flag to separate first-call compile time from
 steady state (stiffnessMtrx.py:116, 736-744; SURVEY.md §5).  This module
 gives the same signal as structured records plus ``jax.profiler`` trace
-integration for real TPU profiling.
+integration for device profiling.
 """
 
 from __future__ import annotations

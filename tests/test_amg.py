@@ -1,7 +1,7 @@
 """Smoothed-aggregation AMG (solvers/amg.py) on genuinely unstructured
 operators: setup sanity, V-cycle convergence, and mesh-size-robust PCG
-iteration counts (the property Jacobi lacks: 415 iterations at 273k dofs,
-measured on TPU; the reference's only solver is Jacobi-PCG,
+iteration counts (the property Jacobi lacks: its count grows with the mesh
+diameter; the reference's only solver is Jacobi-PCG,
 conjugateGradientSolver.py)."""
 
 import numpy as np

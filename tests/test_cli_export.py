@@ -1,6 +1,7 @@
 """CLI and exporter tests."""
 
 import numpy as np
+import pytest
 
 from femcy_tpu.cli import main as cli_main
 from femcy_tpu.io.export import average_nodal_field, export_png, export_vtk
@@ -101,7 +102,7 @@ def test_gif_helper(tmp_path):
 
 
 def test_cli_f32_mode(fixtures_dir):
-    """The framework must run in TPU-native f32 (FEMCY_TPU_X64=0)."""
+    """The framework must run in f32 (FEMCY_TPU_X64=0)."""
     import os
     import subprocess
     import sys
@@ -191,3 +192,27 @@ def test_cli_save_html(fixtures_dir, tmp_path):
     rc = cli_main([str(fixtures_dir / ELLIP), "--save-html", str(html)])
     assert rc == 0
     assert html.exists() and html.stat().st_size > 5_000
+
+
+@pytest.mark.parametrize(
+    "flag,module", [("--save-png", "matplotlib"), ("--save-gif", "PIL")]
+)
+def test_export_flag_without_its_package_fails_clearly(
+    monkeypatch, capsys, flag, module
+):
+    """An export flag whose optional package is missing stops the CLI
+    before any solve, naming the package; the solve path needs neither."""
+    import importlib.util
+
+    from femcy_tpu import cli
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(
+        importlib.util, "find_spec",
+        lambda name, *a: None if name == module else real(name, *a),
+    )
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["model.inp", flag, "out.file"])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert flag in err and "not installed" in err

@@ -1,16 +1,13 @@
-"""On-chip kernel/solver checks (the ``tpu`` tier, VERDICT r4 item 8).
+"""On-card kernel/solver checks (the ``gpu`` tier).
 
 Every other test in this suite runs on the virtual-device CPU mesh
-(conftest.py); the Pallas kernels and the remote-TPU numerical quirks were
-previously covered only by bench.py's one nx=8 selfcheck.  This module runs
-the hot kernels and solver paths on the REAL chip at larger sizes:
+(conftest.py).  This module runs the hot kernels and solver paths on a real
+NVIDIA GPU, compiled for the card, in f32:
 
-    FEMCY_TPU_TEST_BACKEND=tpu FEMCY_TPU_X64=0 python -m pytest -m tpu tests/
+    FEMCY_TEST_GPU=1 FEMCY_TPU_X64=0 python -m pytest -m gpu tests/test_gpu.py
 
-bench.py runs exactly that before emitting any metric, so a Mosaic/XLA/
-service regression fails the benchmark instead of shipping wrong numbers.
-Outside the TPU backend every test here auto-skips (they assert f32 device
-behaviour that the CPU tier cannot represent).
+chip_smoke.py runs exactly that in its kernel phase.  Elsewhere every test
+here skips through the ``gpu_device`` fixture, which decides at run time.
 """
 
 import numpy as np
@@ -18,13 +15,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-pytestmark = [
-    pytest.mark.tpu,
-    pytest.mark.skipif(
-        jax.default_backend() != "tpu",
-        reason="tpu tier runs on the real chip (FEMCY_TPU_TEST_BACKEND=tpu)",
-    ),
-]
+pytestmark = [pytest.mark.gpu, pytest.mark.usefixtures("gpu_device")]
 
 F32 = jnp.float32
 RTOL = 1e-4  # f32 kernel-vs-kernel agreement
@@ -55,11 +46,16 @@ def analytic16(structured16, material):
     return analytic_structured_dia_values(mesh, np.asarray(material.C), dia)
 
 
-def test_pallas_assembly_generic_prep_matches_analytic(
-    structured16, material, analytic16
+@pytest.mark.parametrize(
+    "accumulate,isotropic",
+    [("triton", True), ("triton", False), ("xla", False)],
+)
+def test_structured_assembly_matches_analytic(
+    structured16, material, analytic16, accumulate, isotropic
 ):
-    """structured_assemble_coords (Pallas accumulate, 9-term generic prep)
-    vs the closed-form f64 operator of the uniform grid."""
+    """structured_assemble_coords -- the Triton accumulate with the
+    isotropic 3-term or the generic 9-term prep, and the XLA shifted-slice
+    accumulate -- vs the closed-form f64 operator of the uniform grid."""
     from femcy_tpu.structured import (
         build_structured_plan,
         structured_assemble_coords,
@@ -71,10 +67,12 @@ def test_pallas_assembly_generic_prep_matches_analytic(
     dN = jnp.asarray(mesh.element.dshape_at_gp, F32)
     w = jnp.asarray(mesh.element.gauss_weights, F32)
     C32 = jnp.asarray(material.C, F32)
+    C_host = np.asarray(material.C) if isotropic else None
     vals = np.asarray(
         jax.jit(
             lambda c: structured_assemble_coords(
-                c, mesh, dN, w, C32, plan, accumulate="pallas"
+                c, mesh, dN, w, C32, plan, accumulate=accumulate,
+                C_host=C_host,
             )
         )(coords)
     ).astype(np.float64)
@@ -82,59 +80,29 @@ def test_pallas_assembly_generic_prep_matches_analytic(
     assert err < RTOL, err
 
 
-def test_pallas_assembly_isotropic_prep_matches_analytic(
-    structured16, material, analytic16
-):
-    """The isotropic 3-term prep (what FEMSystem and the benchmarked metric
-    run in production) against the same analytic operator."""
-    from femcy_tpu.structured import (
-        build_structured_plan,
-        structured_assemble_coords,
-    )
-
-    mesh, dia = structured16
-    plan = build_structured_plan(mesh, dia)
-    coords = jnp.asarray(mesh.nodes, F32)
-    dN = jnp.asarray(mesh.element.dshape_at_gp, F32)
-    w = jnp.asarray(mesh.element.gauss_weights, F32)
-    C32 = jnp.asarray(material.C, F32)
-    vals = np.asarray(
-        jax.jit(
-            lambda c: structured_assemble_coords(
-                c, mesh, dN, w, C32, plan, accumulate="pallas",
-                C_host=np.asarray(material.C),
-            )
-        )(coords)
-    ).astype(np.float64)
-    err = np.abs(vals - analytic16).max() / np.abs(analytic16).max()
-    assert err < RTOL, err
-
-
-def test_pallas_spmv_matches_xla_slices(structured16, analytic16):
-    """The x-resident Pallas DIA SpMV vs the XLA shifted-slice SpMV on
-    random input over the full 59-offset operator."""
+def test_triton_spmv_matches_xla_slices(structured16, analytic16):
+    """The Triton DIA SpMV vs XLA's shifted-slice SpMV on random input over
+    the full 59-offset operator."""
     from femcy_tpu.kernels.dia_spmv import make_spmv
     from femcy_tpu.solvers.dia import dia_spmv
 
     mesh, dia = structured16
-    spmv = make_spmv(mesh.n_dof, dia.offsets, dtype=F32)
-    if spmv is None:
-        pytest.skip("pallas spmv unavailable at this size")
-    prep, apply_fn = spmv
+    prep, apply_fn = make_spmv(mesh.n_dof, dia.offsets)
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal(mesh.n_dof), F32)
     v32 = jnp.asarray(analytic16.astype(np.float32))
-    y_pal = np.asarray(jax.jit(lambda v, xx: apply_fn(prep(v), xx))(v32, x))
-    y_xla = np.asarray(
+    y_k = np.asarray(jax.jit(lambda v, xx: apply_fn(prep(v), xx))(v32, x))
+    y_x = np.asarray(
         jax.jit(lambda v, xx: dia_spmv(v, dia.offsets, xx))(v32, x)
     )
-    err = np.abs(y_pal - y_xla).max() / (np.abs(y_xla).max() + 1e-30)
+    err = np.abs(y_k - y_x).max() / (np.abs(y_x).max() + 1e-30)
     assert err < RTOL, err
 
 
 def test_dia_pcg_solves_structured_operator(structured16, analytic16):
-    """The DIA Jacobi-PCG (lax.while_loop, Pallas SpMV inside when
-    available) reaches its residual gate on the BC-eliminated operator."""
+    """The DIA Jacobi-PCG (lax.while_loop, Triton SpMV inside) reaches its
+    residual gate on the BC-eliminated operator."""
+    from femcy_tpu.kernels.dia_spmv import make_spmv
     from femcy_tpu.solvers.dia import dia_dirichlet_linear, dia_pcg_solve
 
     mesh, dia = structured16
@@ -156,7 +124,8 @@ def test_dia_pcg_solves_structured_operator(structured16, analytic16):
     )
     x, iters, rmax = jax.jit(
         lambda v, bb: dia_pcg_solve(v, dia.offsets, dia.diag_idx, bb,
-                                    eps=1e-4)
+                                    eps=1e-4,
+                                    spmv=make_spmv(mesh.n_dof, dia.offsets))
     )(values_bc, b)
     x = np.asarray(x)
     assert np.isfinite(x).all() and np.abs(x).max() > 0

@@ -248,8 +248,8 @@ def test_analytic_values_match_rediscretization():
 
 
 def test_newton_schulz_inverse_matches_lapack():
-    """The matmul-only dense inverse (the TPU coarsest-level solve, where
-    LAPACK custom calls are unavailable) reaches machine precision on an SPD
+    """The matmul-only dense inverse (a device-side coarsest-level solve
+    with no LAPACK custom call) reaches machine precision on an SPD
     operator with cond ~ 1e4."""
     from femcy_tpu.solvers.multigrid import newton_schulz_inverse
 
@@ -262,8 +262,8 @@ def test_newton_schulz_inverse_matches_lapack():
 
 
 def test_device_analytic_values_match_host():
-    """The on-device cell-tensor broadcast (what multigrid setup now uses so
-    nothing big crosses the host-device tunnel) equals the numpy oracle, and
+    """The on-device cell-tensor broadcast (a multigrid setup that uploads
+    only the ~11 KB cell tensor) equals the numpy oracle, and
     the DIA->dense helper round-trips through scipy exactly."""
     from femcy_tpu.solvers.dia import build_structured_dia_pattern
     from femcy_tpu.structured import (
@@ -329,9 +329,10 @@ def test_multigrid_level_values_match_rediscretization():
 
 def test_chebyshev_smoother_converges():
     """smoother='chebyshev' (degree-N polynomial in D^-1 A with Gershgorin
-    bounds) is a correct drop-in for the damped-Jacobi sweeps.  Measured on
-    TPU at 1M elements it does NOT beat Jacobi (8-9 vs 7 CG iterations and a
-    pricier cycle), so jacobi stays the default; this pins correctness."""
+    bounds) is a correct drop-in for the damped-Jacobi sweeps.  At 1M
+    elements it does NOT beat Jacobi on iteration count (8-9 vs 7 CG
+    iterations) with a pricier cycle, so jacobi stays the default; this
+    pins correctness."""
     import jax.numpy as jnp
 
     from femcy_tpu import structured as st
@@ -364,14 +365,14 @@ def test_chebyshev_smoother_converges():
 
 def test_coarse_pallas_spmv_parity():
     """coarse_spmv="interpret" routes the coarse-level operator applications
-    through the Pallas x-resident SpMV kernel (the production TPU path picks
-    this automatically); the preconditioned solve must match the XLA
+    through the Triton DIA SpMV kernel (the GPU f32 path picks it
+    automatically); the preconditioned solve must match the XLA
     shifted-slice cycle to roundoff."""
     mesh, mat, fixed, dia, values_bc, b = _problem(16)
     kw = dict(dia=dia, coarsest_max_dof=400)
     mg_ref = StructuredMultigrid(mesh, mat, fixed, **kw)
     mg_pal = StructuredMultigrid(mesh, mat, fixed, coarse_spmv="interpret", **kw)
-    # three levels (16 -> 8 -> 4): the 8^3 middle level gets a Pallas plan
+    # three levels (16 -> 8 -> 4): the 8^3 middle level gets a kernel plan
     assert len(mg_pal.levels) == 3
     assert mg_pal._plans[1] is not None and mg_pal._values_t[0] is not None
     x_ref, it_ref, _ = mg_ref.pcg_solve(values_bc, b, eps=1e-8)

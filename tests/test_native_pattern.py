@@ -79,3 +79,25 @@ def test_lazy_scatter_targets_match_block_expansion():
 def test_pattern_validate():
     mesh = box_tets(2, 2, 2)
     build_pattern(mesh).validate()
+
+
+def test_library_is_keyed_on_the_source_hash(tmp_path):
+    """A build is reused only under the name carrying its source's hash:
+    editing the source (or copying in a foreign library) never loads a
+    stale build."""
+    import pathlib
+
+    from femcy_tpu.native import loader
+
+    src = tmp_path / "pattern.cpp"
+    src.write_text("int f() { return 1; }\n")
+    first = loader.library_path(src)
+    assert first.parent == tmp_path
+    assert first.name.startswith("libfemcy_pattern-") and first.suffix == ".so"
+    assert loader.library_path(src) == first
+    src.write_text("int f() { return 2; }\n")
+    assert loader.library_path(src) != first
+    # the shipped source maps to the library the loader actually uses
+    lib = loader.get_lib()
+    if lib is not None:
+        assert pathlib.Path(lib._name) == loader.library_path()

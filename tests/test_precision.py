@@ -123,7 +123,7 @@ def f32_mode():
     "rel", [ELLIP_CPS3, ELLIP_CPS6], ids=["cps3", "cps6"]
 )
 def test_f32_stress_error_within_gate(fixtures_dir, f32_mode, rel):
-    """f32 (the TPU-native dtype) keeps the elliptic-membrane stress within
+    """f32 keeps the elliptic-membrane stress within
     the driver's 0.1% bar of the f64 result (measured ~0.02%)."""
     s32 = _stress(fixtures_dir, rel)
     jax.config.update("jax_enable_x64", True)
@@ -162,7 +162,7 @@ def test_f32_near_incompressible_warns(fixtures_dir, f32_mode, caplog):
 def test_mixed_precision_refine_near_incompressible(
     fixtures_dir, f32_mode, inner
 ):
-    """The TPU-native near-incompressible answer: f32 bulk work + f64 host
+    """The f32 near-incompressible answer: f32 bulk work + f64 host
     residuals land the nu=0.4999 Cook tip displacement at the f64 direct
     anchor (27.4931, pinned by test_cook_nu4999_tip_displacement) within
     0.1% -- where plain f32 is ~4% off and the capped f32 CG ~12% off."""

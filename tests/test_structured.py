@@ -3,6 +3,7 @@
 import jax.numpy as jnp
 import jax
 import numpy as np
+import pytest
 
 from femcy_tpu import assembly
 from femcy_tpu.materials import LinearIsotropic
@@ -79,8 +80,8 @@ def test_structured_element_nodes_matches_gather():
 
 
 def test_pallas_accumulate_matches_xla():
-    """The VMEM accumulate kernel (interpret mode on CPU) equals the XLA
-    shifted-slice path to f32 roundoff on a non-cubic box."""
+    """The Triton accumulate kernel (Pallas, interpret mode on CPU) equals
+    the XLA shifted-slice path to f32 roundoff on a non-cubic box."""
     from femcy_tpu.materials import LinearIsotropic
     from femcy_tpu.solvers.dia import build_structured_dia_pattern
     from femcy_tpu.structured import (
@@ -102,7 +103,7 @@ def test_pallas_accumulate_matches_xla():
     )
     out = np.asarray(
         structured_assemble_coords(coords, mesh, dN, w, C, plan,
-                                   accumulate="pallas")
+                                   accumulate="triton", interpret=True)
     )
     np.testing.assert_allclose(
         out, ref, rtol=0, atol=1e-5 * np.abs(ref).max()
@@ -110,10 +111,9 @@ def test_pallas_accumulate_matches_xla():
 
 
 def test_pallas_assemble_matches_f64_oracle():
-    """The kernel-path assembly in f32 stays at roundoff distance from the
-    f64 analytic operator (the TPU-default bf16 matmul precision put ~0.7%
-    into the einsum path until femcy_tpu forced 'highest'; this pins the
-    kernel path against the exact oracle rather than another f32 path)."""
+    """The kernel-path assembly in f32 (generic 9-term prep) stays at
+    roundoff distance from the f64 analytic operator: the kernel path is
+    pinned against the exact oracle rather than another f32 path."""
     from femcy_tpu.materials import LinearIsotropic
     from femcy_tpu.solvers.dia import build_structured_dia_pattern
     from femcy_tpu.structured import (
@@ -132,7 +132,8 @@ def test_pallas_assemble_matches_f64_oracle():
             jnp.asarray(mesh.nodes, jnp.float32), mesh,
             jnp.asarray(mesh.element.dshape_at_gp, jnp.float32),
             jnp.asarray(mesh.element.gauss_weights, jnp.float32),
-            jnp.asarray(mat.C, jnp.float32), plan, accumulate="pallas",
+            jnp.asarray(mat.C, jnp.float32), plan, accumulate="triton",
+            interpret=True,
         )
     )
     err = np.abs(out - oracle).max() / np.abs(oracle).max()
@@ -161,8 +162,8 @@ def test_pallas_isotropic_prep_matches_f64_oracle():
             jnp.asarray(mesh.nodes, jnp.float32), mesh,
             jnp.asarray(mesh.element.dshape_at_gp, jnp.float32),
             jnp.asarray(mesh.element.gauss_weights, jnp.float32),
-            jnp.asarray(mat.C, jnp.float32), plan, accumulate="pallas",
-            C_host=np.asarray(mat.C),
+            jnp.asarray(mat.C, jnp.float32), plan, accumulate="triton",
+            C_host=np.asarray(mat.C), interpret=True,
         )
     )
     err = np.abs(out - oracle).max() / np.abs(oracle).max()
@@ -170,9 +171,9 @@ def test_pallas_isotropic_prep_matches_f64_oracle():
 
 
 def test_matmul_precision_defaults_to_highest():
-    """importing femcy_tpu must force full-f32 matmul precision: the TPU
-    MXU default (bf16 passes) measured 0.67% assembly error vs the f64
-    analytic operator -- far beyond the 0.1% stress accuracy gate."""
+    """importing femcy_tpu must force full-f32 matmul precision: a reduced
+    default (TF32 on an NVIDIA GPU, about three decimal digits) is far
+    too coarse for the 0.1% stress accuracy gate."""
     import jax
 
     assert jax.config.jax_default_matmul_precision == "highest"
@@ -218,3 +219,37 @@ def test_system_uses_structured_plan_and_solves():
         jnp.asarray(np.zeros(mesh.n_dof)),
     )
     np.testing.assert_allclose(float(res), float(res2), rtol=1e-12)
+
+
+def test_auto_chooser_never_interprets_off_gpu():
+    """Off-GPU the auto chooser takes the XLA path (no pallas_call in the
+    program), and forcing the kernel without interpret=True raises instead
+    of silently running the interpreter."""
+    import jax
+
+    from femcy_tpu.materials import LinearIsotropic
+    from femcy_tpu.solvers.dia import build_structured_dia_pattern
+    from femcy_tpu.structured import (
+        build_structured_plan,
+        kernel_assembly_eligible,
+        structured_assemble_coords,
+    )
+
+    mesh = box_tets(2, 2, 2)
+    mat = LinearIsotropic(1000.0, 0.3)
+    plan = build_structured_plan(mesh, build_structured_dia_pattern(mesh))
+    args = (jnp.asarray(mesh.nodes, jnp.float32), mesh,
+            jnp.asarray(mesh.element.dshape_at_gp, jnp.float32),
+            jnp.asarray(mesh.element.gauss_weights, jnp.float32),
+            jnp.asarray(mat.C, jnp.float32), plan)
+    assert jax.default_backend() == "cpu"
+    assert not kernel_assembly_eligible(mesh, jnp.float32)
+    jaxpr = str(jax.make_jaxpr(
+        lambda c: structured_assemble_coords(c, *args[1:],
+                                             C_host=np.asarray(mat.C))
+    )(args[0]))
+    assert "pallas_call" not in jaxpr
+    with pytest.raises(ValueError, match="GPU"):
+        structured_assemble_coords(*args, accumulate="triton")
+    with pytest.raises(ValueError, match="unknown"):
+        structured_assemble_coords(*args, accumulate="pallas")
